@@ -1,5 +1,5 @@
-"""Driver benchmark entry point: prints ONE JSON line (see
-lora_tpu/benchmarks.py for the measurement)."""
+"""Headline benchmark: prints ONE JSON line on a GPU, fails without one
+(see lora_tpu/benchmarks.py for the measurement)."""
 
 from lora_tpu.benchmarks import main
 

@@ -1,9 +1,9 @@
-"""lora_tpu — a TPU-native LoRa PHY framework (JAX / XLA / Pallas).
+"""lora_tpu — a LoRa PHY framework in JAX.
 
 Array-first re-design of the capabilities of myriadrf/LoRa-SDR: batched
-encode/modulate/demodulate/decode over channel banks sharded across a TPU
-mesh, with the per-symbol dechirp+FFT+argmax fused into MXU-friendly kernels
-and the bit-domain codecs vectorized as integer LUT ops.
+encode/modulate/demodulate/decode over channel banks sharded across a
+device mesh, with the per-symbol dechirp+FFT+argmax run as one batched
+XLA program and the bit-domain codecs vectorized as integer LUT ops.
 """
 
 from .config import LoRaConfig, CODING_RATES

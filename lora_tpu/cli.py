@@ -20,6 +20,8 @@ import sys
 
 import numpy as np
 
+from .utils.compile_cache import enable_compile_cache
+
 
 def _cfg_from(args, payload_len: int):
     from .config import LoRaConfig
@@ -226,12 +228,6 @@ def cmd_bench(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="lora_tpu", description=__doc__)
-    ap.add_argument(
-        "--cpu", action="store_true",
-        help="force the CPU backend (environments that pre-pin jax to an "
-        "accelerator platform ignore JAX_PLATFORMS set after startup; this "
-        "flag switches before first backend use)",
-    )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def common(p, multi_sfcr=False):
@@ -308,14 +304,11 @@ def main(argv=None) -> int:
     )
     p.set_defaults(fn=cmd_replay)
 
-    p = sub.add_parser("bench", help="run the headline TPU benchmark")
+    p = sub.add_parser("bench", help="run the headline GPU benchmark")
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
-    if args.cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
     return args.fn(args)
 
 

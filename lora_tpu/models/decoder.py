@@ -8,7 +8,7 @@ decode (payload length / CRC-present / header-announced coding rate), FEC
 decode with the rate announced by the header, CRC16 verify + unmask, and
 the reference's drop taxonomy.
 
-TPU-native formulation: the deinterleave/dewhiten/LUT-decode pipeline is
+Batched formulation: the deinterleave/dewhiten/LUT-decode pipeline is
 static-shape; only two things are data-dependent and both stay inside the
 traced program: the header-announced coding rate (a 5-way LUT row select)
 and the payload length (masks + gathers).  A batch of B packets decodes as
@@ -102,6 +102,7 @@ def _masked_crc16(data: jax.Array, length: jax.Array) -> jax.Array:
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "num_symbols"))
+@jax.named_scope("decode")
 def decode(symbols: jax.Array, cfg: LoRaConfig, num_symbols: int | None = None):
     """Decode packets.
 

@@ -7,7 +7,7 @@ fine-CFO rotator; two downchirps give the coarse CFO; the quarter chirp
 applies a joint time/frequency correction; then one data symbol per work().
 Data-dependent `consume()` cannot exist under XLA's static shapes.
 
-TPU-native reformulation (SURVEY.md §7 item 2):
+Batched reformulation (SURVEY.md §7 item 2):
 
   1. *Block-parallel coarse search*: dechirp-FFT every stride-N window of
      the block at once; inside a preamble every window reads the same bin v
@@ -46,12 +46,13 @@ import numpy as np
 from ..config import LoRaConfig
 from ..ops import cplx
 from ..ops import detect as det_ops
-from ..ops import pallas_demod
 from ..ops import shift as shift_ops
 from ..ops.cplx import IQ
 
 MAX_SYNC_SEARCH = 13  # aligned windows scanned for the sync word (>= 9
 #                       remaining preamble + 2 sync + margin)
+N_TRACK_WIN = MAX_SYNC_SEARCH + 4  # scan + 2 downchirps + quarter margin
+TRACK_ROWS = N_TRACK_WIN + 1  # aligned rows gathered (one more for the shift)
 
 
 @jax.tree_util.register_dataclass
@@ -81,34 +82,32 @@ class DemodResult:
     #                           LoRaDemod.cpp:81,152-154) (debug)
 
 
-def _payload_gather_rows(cfg: LoRaConfig) -> int:
-    """Aligned rows the payload stage gathers per frame (>= mtu+1; padded
-    to the fused kernel's tile grid so CPU and TPU paths share one
-    data_start clipping bound and stay bit-identical)."""
-    return pallas_demod.payload_rows(cfg.N, cfg.mtu)
+def payload_rows(N: int, mtu: int) -> int:
+    """Aligned N-sample rows the payload stage may address per frame: the
+    next multiple of 8 strictly above mtu, plus 8 more when those rows
+    exceed 2**18 samples.  Only mtu + 1 rows are gathered; the rest is
+    slack that fixes data_start's clipping bound (and so every result)
+    where an earlier tiled kernel put it."""
+    rp = 8 * (mtu // 8 + 1)
+    return rp if rp * N <= 1 << 18 else rp + 8
 
 
 def required_samples(cfg: LoRaConfig, search_symbols: int = 4) -> int:
     """Minimum buffer length for demodulate(): search margin + preamble +
-    sync + downchirps + quarter + MTU payload (padded to the payload
-    gather grid) + retime slack.
+    sync + downchirps + quarter + MTU payload (padded to payload_rows) +
+    retime slack.
 
     Always a multiple of N: the quarter-chirp consume is rounded up to a
-    whole symbol so the [B, W, N] row view the coarse/payload kernels read
-    is a free reshape of the buffer (a T % N != 0 buffer would make the
-    xb[:, :W*N] slice a real copy — ~2x1.5 GB of HBM traffic at
-    SF10/B=2048).
-
-    The row count W = T // N is additionally padded so (W - Rp) % 8 == 0:
-    the gather-free direct payload kernel slices channel rows at 8-aligned
-    sublane offsets only (Mosaic legality, ops/pallas_demod
-    .payload_direct_pc), and this grid lets its clamped slice reach every
-    row the gather path's clamp q <= W - Rp can address."""
+    whole symbol so the [B, W, N] row view the coarse detector reads is a
+    free reshape of the buffer (T % N != 0 would make the xb[:, :W*N]
+    slice a real copy).  The row count W = T // N is additionally padded
+    so (W - payload_rows) % 8 == 0, a grid an earlier kernel needed; it
+    stays so that results do not move."""
     N = cfg.N
+    rp = payload_rows(N, cfg.mtu)
     head = cfg.preamble_symbols + 2 + 2 + 1
-    rows = max(cfg.mtu + 1, _payload_gather_rows(cfg))
-    w = search_symbols + head + rows + 1
-    w += (-(w - _payload_gather_rows(cfg))) % 8
+    w = search_symbols + head + max(cfg.mtu + 1, rp) + 1
+    w += (-(w - rp)) % 8
     return w * N
 
 
@@ -117,21 +116,15 @@ def _trunc_half(x: jax.Array) -> jax.Array:
     return jnp.sign(x) * (jnp.abs(x) // 2)
 
 
-def _coarse_detect(xb: IQ, cfg: LoRaConfig, bf16: bool = False):
+def _coarse_detect(xb: IQ, cfg: LoRaConfig):
     """Stage 1 detect: dechirp-detect every stride-N window of every
-    channel in ONE batched call, OUTSIDE the per-channel alignment vmap.
-
-    Hoisted deliberately: under vmap, pallas_call's batching rule pads
-    each lane's W windows up to the kernel tile (W=64 -> TW=128 at SF10,
-    2x wasted detects) and trades the flat [B*W] grid for a per-channel
-    one — measured ~3x slower than the same detect called flat
-    (docs/SCALING.md round-2 coarse row).  Returns (v, snr0, pwr), each
-    [B, W]."""
+    channel in ONE batched [B, W, N] call, outside the per-channel
+    alignment vmap.  Returns (v, snr0, pwr), each [B, W]."""
     B, T = xb.shape
     N = cfg.N
     W = T // N
     win = xb[:, : W * N].reshape(B, W, N)
-    d0 = det_ops.dechirp_detect(win, want_f_index=False, bf16=bf16)
+    d0 = det_ops.dechirp_detect(win)
     return d0.value, d0.power - d0.noise, d0.power
 
 
@@ -185,32 +178,25 @@ def _extend_run(cfg: LoRaConfig, agree, v, first_w, T: int):
     d_sorted = jnp.sort(jnp.where(in_run, delta, big))
     d_med = d_sorted[jnp.maximum(cnt - 1, 0) // 2]
     v_sel = jnp.mod(v_ref + d_med, N)
-    n_rows = MAX_SYNC_SEARCH + 4
     t_cand = (last_w * N + ((N - v_sel) % N)).astype(jnp.int32)
-    # clamp so the scan block fits entirely (n_rows + 1 aligned rows for
+    # clamp so the scan block fits entirely (TRACK_ROWS aligned rows for
     # the row+shift gather): the gathered rows then match t0 exactly and
     # t_sync stays truthful even when the frame's tail is not in this
     # buffer (callers re-aim from t_candidate)
-    t0 = jnp.clip(t_cand, 0, T - (n_rows + 1) * N).astype(jnp.int32)
+    t0 = jnp.clip(t_cand, 0, T - TRACK_ROWS * N).astype(jnp.int32)
     return t_cand, t0
 
 
 def _scan_track(xs: IQ, cfg: LoRaConfig, t0, t_cand, found_pre, T: int):
-    """Stages 2-4 on aligned window blocks xs [M, n_rows, N], batched over
-    all M candidates at once (channels, or channels x frame slots
+    """Stages 2-4 on aligned window blocks xs [M, N_TRACK_WIN, N], batched
+    over all M candidates at once (channels, or channels x frame slots
     flattened): sync scan, downchirp CFO, quarter-chirp correction.
 
-    The scan runs OUTSIDE any per-candidate vmap and each step issues one
-    flat [M, 2, N] detect — the step's current window and its lookahead
+    The scan runs outside any per-candidate vmap and each step issues one
+    flat [M, 2, N] detect: the step's current window and its lookahead
     share the carried fine-CFO state, so pairing them halves the
-    sequential launch chain, and the flat batch lets the detect ride the
-    fused batched detector kernel on TPU (ops/pallas_detect; under a
-    per-candidate vmap, pallas_call's batching rule both mis-tiles and
-    loses the flat grid, so the former per-channel formulation was stuck
-    with single-window XLA detects).  This is the production tracking
-    path wherever the fused kernels are off (fused="off", non-TPU
-    backends).  Per-candidate results are
-    bit-identical to the former vmapped scalar scan."""
+    sequential chain of steps.  Per-candidate results are bit-identical
+    to a vmapped scalar scan."""
     N = cfg.N
     M = t0.shape[0]
     thresh = jnp.float32(cfg.thresh)
@@ -280,7 +266,7 @@ def _scan_track(xs: IQ, cfg: LoRaConfig, t0, t_cand, found_pre, T: int):
     # ---- 4. quarter-chirp joint time/frequency correction ------------------
     fine_total = ferr + _trunc_half(freq_error).astype(jnp.float32)
     data_start = t_dc + 2 * N + N // 4 + _trunc_half(freq_error)
-    room = max(0, T - _payload_gather_rows(cfg) * N)
+    room = max(0, T - payload_rows(cfg.N, cfg.mtu) * N)
     fits = data_start <= room
     data_start = jnp.clip(data_start, 0, room).astype(jnp.int32)
 
@@ -364,118 +350,33 @@ def _payload_epilogue(head: DemodResult, dd, cfg: LoRaConfig):
     )
 
 
-def _fused_track(xb: IQ, cfg: LoRaConfig, t0, t_cand, found_pre, T: int,
-                 interpret: bool, bf16: bool = False):
-    """Stages 2-4 as one fused Pallas launch (ops/pallas_demod.track):
-    row-granular gather of the scan block, in-kernel sub-window roll, sync
-    scan + downchirp CFO.  Output-identical to the vmapped _scan_track.
-
-    Single-frame banks whose geometry fits route to the gather-free
-    direct kernel: it reads the [B, W, N] row view (CSE'd with the coarse
-    detector's and direct payload kernel's operand) and selects each
-    channel's scan rows in VMEM, so the gathered [B, TRACK_ROWS, N]
-    intermediate never exists in HBM."""
-    N = cfg.N
-    B = xb.shape[0]
-    W = T // N
-    direct = (
-        t0.ndim == 1
-        and pallas_demod.track_direct_tc(N, W, B) is not None
-    )
-    if direct:
-        x3 = xb[:, : W * N].reshape(B, W, N)
-        tr = pallas_demod.track_direct(
-            x3, t0 // N, t0 % N, cfg.sync, cfg.thresh,
-            interpret=interpret, bf16=bf16,
-        )
-    else:
-        rows = shift_ops.gather_rows(
-            xb, t0 // N, pallas_demod.TRACK_ROWS, N
-        )
-        tr = pallas_demod.track(
-            rows, t0 % N, cfg.sync, cfg.thresh, interpret=interpret, bf16=bf16
-        )
-    found = found_pre & tr["synced"]
-    k_sync = tr["k_sync"]
-    freq_error = tr["freq_error"]
-    fine_total = tr["fine_total"]
-    t_dc = t0 + (k_sync + 2) * N
-    data_start = t_dc + 2 * N + N // 4 + _trunc_half(freq_error)
-    room = max(0, T - _payload_gather_rows(cfg) * N)
-    fits = data_start <= room
-    data_start = jnp.clip(data_start, 0, room).astype(jnp.int32)
-    head = DemodResult(
-        symbols=jnp.zeros((), jnp.int16),
-        count=jnp.zeros((), jnp.int32),
-        found=found,
-        freq_error=jnp.where(found, freq_error, 0),
-        fine_freq=jnp.where(found, fine_total, 0.0),
-        power=tr["power"],
-        snr=tr["snr"],
-        t_sync=(t0 + k_sync * N).astype(jnp.int32),
-        consumed=data_start,
-        found_pre=found_pre,
-        t_candidate=t_cand,
-        payload_complete=found & fits,
-    )
-    return head, fine_total
-
-
-def _fused_mode(fused: str, N: int) -> tuple[bool, bool, bool]:
-    """Resolve the `fused` dispatch string -> (use_fused, interpret, bf16).
-
-    "auto"/"bf16" use the fused Pallas kernels on TPU backends (bf16 also
-    casts the DFT matmul operands, ops/pallas_detect._mxu_dot);
-    "interpret"/"interpret-bf16" force the kernels in interpreter mode on
-    any backend (cross-validation); "off" forces the XLA reference path."""
-    interpret = fused in ("interpret", "interpret-bf16")
-    bf16 = fused in ("bf16", "interpret-bf16")
-    use = pallas_demod.supported(N) and (
-        interpret
-        or (fused in ("auto", "bf16") and jax.default_backend() == "tpu")
-    )
-    return use, interpret, bf16
-
-
-@functools.partial(
-    jax.jit, static_argnames=("cfg", "max_frames", "fused")
-)
-def _head_stage(xb: IQ, cfg: LoRaConfig, max_frames: int, fused: str):
+def _head_stage(xb: IQ, cfg: LoRaConfig, max_frames: int):
     """Alignment + tracking (stages 1-3): pad, coarse preamble search,
     sync scan + CFO.  Returns (padded xb, head result, fine CFO, t0)."""
     need = required_samples(cfg)
     if xb.shape[-1] < need:  # static: pad short buffers to the demod window
         xb = cplx.pad(xb, ((0, 0), (0, need - xb.shape[-1])))
     T = xb.shape[-1]
-    n_rows = MAX_SYNC_SEARCH + 4
-    use_fused, interpret, bf16 = _fused_mode(fused, cfg.N)
-    # the coarse detector only takes the bf16 cast on the real-TPU Pallas
-    # route (detect.dechirp_detect ignores it on the XLA fallback)
-    cv, csnr, cpwr = _coarse_detect(xb, cfg, bf16)
-    if max_frames == 1:
-        t_cand, t0, found_pre = jax.vmap(
-            lambda v, s, p: _align_frame(v, s, p, cfg, T)
-        )(cv, csnr, cpwr)
-    else:
-        t_cand, t0, found_pre = jax.vmap(
-            lambda v, s, p: _align_multi(v, s, p, cfg, max_frames, T)
-        )(cv, csnr, cpwr)
-    if use_fused:
-        head, fine_total = _fused_track(
-            xb, cfg, t0, t_cand, found_pre, T, interpret, bf16
-        )
-    else:
-        # scan window block for the XLA path: row-granular gather + sub-N
-        # shift, exactly like the payload stage below (a sample-granular
-        # per-channel slice measured ~60x slower on TPU; production route
-        # for fused="off" and non-TPU backends).  Bit-identical to
-        # slicing x[t0 : t0+n_rows*N]:
-        # _extend_run clips t0 to T - (n_rows+1)*N, so neither the row
-        # clamp nor the old dynamic_slice clamp ever engages.
+    with jax.named_scope("coarse_detect"):
+        cv, csnr, cpwr = _coarse_detect(xb, cfg)
+    with jax.named_scope("align"):
+        if max_frames == 1:
+            t_cand, t0, found_pre = jax.vmap(
+                lambda v, s, p: _align_frame(v, s, p, cfg, T)
+            )(cv, csnr, cpwr)
+        else:
+            t_cand, t0, found_pre = jax.vmap(
+                lambda v, s, p: _align_multi(v, s, p, cfg, max_frames, T)
+            )(cv, csnr, cpwr)
+    with jax.named_scope("track"):
+        # scan window block: row-granular gather + sub-N shift, exactly
+        # like the payload stage below.  Bit-identical to slicing
+        # x[t0 : t0+N_TRACK_WIN*N]: _extend_run clips t0 to
+        # T - TRACK_ROWS*N, so the row clamp never engages.
         xs = shift_ops.shift_windows(
-            shift_ops.gather_rows(xb, t0 // cfg.N, n_rows + 1, cfg.N),
+            shift_ops.gather_rows(xb, t0 // cfg.N, TRACK_ROWS, cfg.N),
             t0 % cfg.N,
-            n_rows,
+            N_TRACK_WIN,
         )
         if max_frames == 1:
             head, fine_total = _scan_track(xs, cfg, t0, t_cand, found_pre, T)
@@ -493,89 +394,32 @@ def _head_stage(xb: IQ, cfg: LoRaConfig, max_frames: int, fused: str):
     return xb, head, fine_total, t0
 
 
-@functools.partial(
-    jax.jit, static_argnames=("cfg", "debug", "max_frames", "fused",
-                              "spectra")
-)
 def _payload_stage(
     xb: IQ, head: DemodResult, fine_total, t0,
-    cfg: LoRaConfig, debug: bool, max_frames: int, fused: str,
-    spectra: bool = False,
+    cfg: LoRaConfig, debug: bool, spectra: bool,
 ):
     """Stage 4 + epilogue: payload gather, detect, symbol emission.
 
     spectra=True carries the payload |FFT|^2 windows (fft_mag2) for
     soft-decision decoding (models/softdec) without the debug taps'
-    raw/dec arrays — the production soft-RX route.  The head stage keeps
-    its fused kernels either way; only the payload detect takes the
-    mag2-carrying XLA path."""
-    use_fused, interpret, bf16 = _fused_mode(fused, cfg.N)
-    # fast payload gather: whole rows on the N-grid, then the sub-window
-    # shift on-chip (sample-granular gathers run ~60x slower on TPU)
+    raw/dec arrays — the production soft-RX route."""
+    # payload gather: whole rows on the N-grid, then the sub-window shift
     data_start = head.consumed
     dec = raw = None
-    T = xb.shape[-1]
-    W = T // cfg.N
-    B = xb.shape[0]
-    if use_fused and not debug:
-        # spectra=True (the soft-RX route) stays on the fused kernels: they
-        # emit the payload |FFT|^2 windows as an extra output (round-5;
-        # previously this fell back to the unfused XLA path).  Magnitudes
-        # match the XLA spectra (the roll-free alignment's phase factors
-        # drop under |.|^2) and decode_soft decisions are pinned identical
-        # in tests/test_pallas_demod.py.
-        direct = (
-            max_frames == 1
-            and pallas_demod.payload_direct_pc(cfg.N, cfg.mtu, W, B)
-            is not None
-        )
-        if direct:
-            # gather-free payload: the kernel reads the [B, W, N] row view
-            # (CSE'd with the coarse detector's operand) and selects each
-            # channel's rows in VMEM — the gathered intermediate never
-            # exists in HBM (ops/pallas_demod.payload_detect_direct)
-            x3 = xb[:, : W * cfg.N].reshape(B, W, cfg.N)
-            out = pallas_demod.payload_detect_direct(
-                x3, data_start // cfg.N, data_start % cfg.N, fine_total,
-                cfg.mtu, interpret=interpret, bf16=bf16, want_mag2=spectra,
-            )
-        else:
-            # fused payload with an XLA row gather (multi-frame candidates
-            # or geometries past the direct kernel's VMEM budget)
-            g = shift_ops.gather_rows(
-                xb, data_start // cfg.N, _payload_gather_rows(cfg), cfg.N
-            )
-            out = pallas_demod.payload_detect(
-                g, data_start % cfg.N, fine_total, cfg.mtu,
-                interpret=interpret, bf16=bf16, want_mag2=spectra,
-            )
-        if spectra:
-            val, pwr, nse, m2 = out
-        else:
-            (val, pwr, nse), m2 = out, None
-        dd = det_ops.DetectResult(
-            value=val, power=pwr, noise=nse, f_index=jnp.zeros_like(pwr),
-            mag2=m2,
-        )
+    xd = shift_ops.shift_windows(
+        shift_ops.gather_rows(xb, data_start // cfg.N, cfg.mtu + 1, cfg.N),
+        data_start % cfg.N,
+        cfg.mtu,
+    )
+    if debug:  # keep the raw/dechirped taps + spectra (the reference's
+        # raw/dec/fft debug ports)
+        raw = xd
+        dec = det_ops.dechirp(xd, ferr=fine_total[..., None])
+        dd = det_ops.detect(dec, want_mag2=True)
     else:
-        xd = shift_ops.shift_windows(
-            shift_ops.gather_rows(xb, data_start // cfg.N, cfg.mtu + 1, cfg.N),
-            data_start % cfg.N,
-            cfg.mtu,
+        dd = det_ops.dechirp_detect(
+            xd, ferr=fine_total[..., None], want_mag2=spectra
         )
-        if debug:  # keep the raw/dechirped taps + spectra (the reference's
-            # raw/dec/fft debug ports); the fast path fuses everything
-            raw = xd
-            dec = det_ops.dechirp(xd, ferr=fine_total[..., None])
-            dd = det_ops.detect(dec, want_mag2=True)
-        elif spectra:  # lean soft-RX route: spectra only, no raw/dec taps
-            dd = det_ops.dechirp_detect(
-                xd, ferr=fine_total[..., None], want_mag2=True
-            )
-        else:
-            dd = det_ops.dechirp_detect(
-                xd, ferr=fine_total[..., None], want_f_index=False
-            )
     # consumed temporarily holds data_start; restore t0 for the not-found
     # lanes after the epilogue computes the real value
     res = _payload_epilogue(head, dd, cfg)
@@ -590,7 +434,7 @@ def _payload_stage(
 
 def demodulate(
     x: jax.Array, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
-    fused: str = "auto", spectra: bool = False,
+    spectra: bool = False,
 ):
     """Demodulate frames out of each channel buffer.
 
@@ -607,29 +451,7 @@ def demodulate(
 
     spectra=True additionally carries the payload |FFT|^2 windows in
     fft_mag2 — the input of the soft-decision decoder (api.decode_soft) —
-    without the raw/dec debug taps.  The tracking stages keep their fused
-    kernels; only the payload detect takes the spectra-carrying path.
-
-    fused: "auto" routes the tracking + payload stages to the fused Pallas
-    kernels on TPU backends; "bf16" additionally casts the kernels' DFT
-    matmul operands to bfloat16 with f32 accumulation (the v5e MXU's
-    native precision — same symbol decisions, dB outputs move < 0.05 dB,
-    ~1.3-2x faster detection stages); "off" disables the fused
-    track/payload kernels (ops/pallas_demod) — the stage structure then
-    follows the XLA reference path, whose individual window detects
-    still ride the stable batched detector kernel (ops/pallas_detect)
-    on TPU; "interpret" / "interpret-bf16" run the fused kernels in
-    interpreter mode on any backend (cross-validation in tests).
-
-    Dispatch note: round 2 gated "auto" to the XLA path at N >= 2048 with
-    B > 64 after probabilistic TPU-worker crashes (bisected live between
-    B=96 and B=100 on a v5e).  The round-3 kernel restructuring (8-aligned
-    sublane slices + remainder barrel rolls, two-vector scalar prefetch)
-    no longer reproduces the fault: `tools/tune_kernels.py --crash-retest`
-    passes 3 trials at each of (N=2048, B in {128, 512, 2048}) and
-    (N=4096, B in {128, 256, 512}) — 18/18 clean on the chip — so the
-    gate is removed and the fused kernels are live at every SF.  If a
-    crash recurs, re-run the retest and re-gate here.
+    without the raw/dec debug taps.
     """
     x = cplx.as_iq(x)
     squeeze = x.ndim == 1
@@ -640,7 +462,7 @@ def demodulate(
         # sanitizer armed: route through the spectra-carrying payload path
         # so the dechirped payload windows are actually inspected
         spectra = True
-    res = _demod_whole(xb, cfg, debug, max_frames, fused, spectra)
+    res = _demod_whole(xb, cfg, debug, max_frames, spectra)
     if debugcheck.armed():
         T = max(xb.shape[-1], required_samples(cfg))
         debugcheck.check_demod(res, cfg, T)
@@ -650,14 +472,12 @@ def demodulate(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("cfg", "debug", "max_frames", "fused",
-                              "spectra")
+    jax.jit, static_argnames=("cfg", "debug", "max_frames", "spectra")
 )
 def _demod_whole(
-    xb: IQ, cfg: LoRaConfig, debug: bool, max_frames: int, fused: str,
+    xb: IQ, cfg: LoRaConfig, debug: bool, max_frames: int,
     spectra: bool = False,
 ):
-    xb, head, fine_total, t0 = _head_stage(xb, cfg, max_frames, fused)
-    return _payload_stage(
-        xb, head, fine_total, t0, cfg, debug, max_frames, fused, spectra
-    )
+    xb, head, fine_total, t0 = _head_stage(xb, cfg, max_frames)
+    with jax.named_scope("payload_detect"):
+        return _payload_stage(xb, head, fine_total, t0, cfg, debug, spectra)

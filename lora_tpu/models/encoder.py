@@ -7,7 +7,7 @@ interleaver block always rate 4/8, codeword whitening that skips the header
 codewords and keeps a running stream offset, diagonal interleaving, Gray
 *decode* (grayToBinary) plus LSB padding for reduced symbol sets.
 
-TPU-native formulation: one packet is one row; the whole pipeline is pure
+Batched formulation: one packet is one row; the whole pipeline is pure
 array ops with static shapes derived from (config, payload_len), so a batch
 of B packets encodes as a single fused XLA program and vmaps/shard_maps over
 channel banks.  One deliberate divergence: padding nibbles beyond the

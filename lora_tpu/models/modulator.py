@@ -5,7 +5,7 @@ Frame structure on air (reference FSM order, LoRaMod.cpp:140-229):
     10 preamble upchirps | 2 sync-word upchirps (bin nibble*8) |
     2 downchirps | 1/4 downchirp | data upchirps | zero padding
 
-TPU-native formulation: the reference emits one symbol per scheduler
+Batched formulation: the reference emits one symbol per scheduler
 callback through a running float phase accumulator.  Here the whole frame
 is one array program: per-symbol phase profiles come from the closed-form
 integer-turns chirp (ops/chirp.py), and phase continuity across symbols is
@@ -49,7 +49,7 @@ def preamble_nums(cfg: LoRaConfig):
 
 
 def tx_frame_events(cfg: LoRaConfig, num_symbols: int) -> dict:
-    """Per-frame TX sample-index metadata — the TPU-side equivalent of the
+    """Per-frame TX sample-index metadata — the batched equivalent of the
     reference modulator's output-stream state labels and `txEnd` label
     (LoRaMod.cpp:226,233-236).  All offsets index into the corresponding
     `modulate()` output row (static per config + symbol count), for

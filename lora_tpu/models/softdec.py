@@ -129,7 +129,10 @@ def _ml_codewords(llr: jax.Array, stream: jax.Array, rdd: int) -> jax.Array:
     patt = cand[None, :] ^ stream[:, None]  # [n, 16]
     bits = (patt[..., None] >> jnp.arange(nbits)) & 1  # [n, 16, nbits]
     sgn = (2 * bits - 1).astype(llr.dtype)
-    score = jnp.einsum("...nb,nmb->...nm", llr, sgn)
+    # float32 products: TF32 rounding could flip near-tied ML choices
+    score = jnp.einsum(
+        "...nb,nmb->...nm", llr, sgn, precision=jax.lax.Precision.HIGHEST
+    )
     best = jnp.argmax(score, axis=-1)  # [..., n]
     top = jnp.max(score, axis=-1)
     second = jnp.max(
@@ -144,6 +147,7 @@ def _ml_codewords(llr: jax.Array, stream: jax.Array, rdd: int) -> jax.Array:
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "num_symbols"))
+@jax.named_scope("soft_decode")
 def soft_symbols(
     mag2: jax.Array, cfg: LoRaConfig, num_symbols: int | None = None
 ) -> tuple[jax.Array, jax.Array]:

@@ -1,1 +1,1 @@
-from . import codes, chirp, detect, fft  # noqa: F401
+from . import codes, chirp, detect  # noqa: F401

@@ -2,8 +2,7 @@
 
 The reference processes exactly one narrowband stream; multi-channel
 reception exists only as separate radio topologies (SURVEY.md §6,
-BASELINE.json config 3 makes the channelizer a first-class target for the
-TPU build).  This module splits one wideband capture at rate K*BW into K
+BASELINE.json config 3 makes the channelizer a first-class target).  This module splits one wideband capture at rate K*BW into K
 critically-sampled channels of rate BW:
 
     y_k[m] = sum_t h[t] x[mK - t] e^{-2 pi i k (mK - t) / K}
@@ -11,9 +10,8 @@ critically-sampled channels of rate BW:
 
 i.e. a *flipped* commutator Xrev[r, p] = x[rK - p] (each K-block reversed,
 with LK-1 samples of filter history), per-phase FIR with the prototype's
-polyphase components (a static unrolled sum of L shifted multiplies, fused
-by XLA on the VPU), then a K-point IDFT across phases as one [K, K] planar
-matmul on the MXU.  Each channel is an exact time-invariant bandpass
+polyphase components, then a K-point IDFT across phases; the FIR and
+the IDFT collapse into one planar matmul (_fir_idft_matrix).  Each channel is an exact time-invariant bandpass
 filter + decimator; on this decimation grid the channel-k residual
 carrier e^{2 pi i k m} is exactly 1, so each output is true baseband at
 the channel rate.
@@ -62,9 +60,7 @@ def _fir_idft_matrix(
         WB[(r, p), (j, k)] = H[j+L-1-r, p] * W[p, k]   (0 <= j+L-1-r < L)
 
     The prototype FIR and the K-point IDFT collapse into one contraction,
-    and grouping G outputs widens the matmul result to G*K lanes — the
-    round-2 roofline showed K-wide (64) outputs running the MXU at ~4
-    TFLOP/s vs ~31 TFLOP/s for 512-wide."""
+    and grouping G outputs widens the matmul result to G*K columns."""
     L = taps_per_phase
     H = prototype(K, taps_per_phase).reshape(L, K).astype(np.float64)
     wre, wim = _idft_k(K)
@@ -86,9 +82,8 @@ def _grouped_rows(a, K: int, taps_per_phase: int, G: int):
 
     Rows qG..qG+G-1 are exactly row q of the (Q, G*K) reshape, rows
     qG+G.. come from row q+1 of G-shifted reshapes — so Z is a lane-axis
-    concat of ceil(R/G) CONTIGUOUS reshaped views instead of R stride-G
-    row gathers (the strided form ran the whole channelizer at ~1
-    TFLOP/s; the gather, not the matmul, was the bound).  Shared by the
+    concat of ceil(R/G) contiguous reshaped views instead of R stride-G
+    row gathers.  Shared by the
     analysis (channelize) and synthesis (synthesize) banks — their
     block-Toeplitz operands are identical up to the constant matrix."""
     L = taps_per_phase
@@ -145,7 +140,6 @@ def synthesize(
     taps_per_phase: int = 8,
     state: IQ | None = None,
     group: int | None = None,
-    bf16: bool = False,
 ) -> tuple[IQ, IQ]:
     """Synthesis filterbank (TX combiner): merge K channel streams into
     one wideband stream — the exact transpose of :func:`channelize`.
@@ -162,7 +156,7 @@ def synthesize(
     Each channel is zero-stuffed, interpolated with the same Kaiser
     prototype as the analysis bank (unit passband gain: K*h) and mixed to
     its carrier — algebraically identical to summing
-    :func:`upconvert` over channels, but as ONE block-Toeplitz MXU
+    :func:`upconvert` over channels, but as ONE block-Toeplitz
     contraction over all K channels (upconvert is O(K*L) per output
     sample, usable for test vectors only).
 
@@ -191,7 +185,7 @@ def synthesize(
         _grouped_rows(rows.im, K, taps_per_phase, G),
     )
     wsr, wsi = _fir_dft_syn_matrix(K, taps_per_phase, G)
-    x = cplx.matmul(Z, IQ(jnp.asarray(wsr), jnp.asarray(wsi)), bf16=bf16)
+    x = cplx.matmul(Z, IQ(jnp.asarray(wsr), jnp.asarray(wsi)))
     x = x.reshape(*u.shape[:-2], M * K)
     return x, new_state
 
@@ -202,8 +196,6 @@ def channelize(
     taps_per_phase: int = 8,
     state: IQ | None = None,
     group: int | None = None,
-    bf16: bool = False,
-    impl: str = "auto",
 ) -> tuple[IQ, IQ]:
     """Split wideband IQ [..., T] (T % K == 0) into K channels.
 
@@ -213,18 +205,8 @@ def channelize(
                  the next block (streaming continuity; pass as `state`)
 
     With state=None the filter history starts at zero (first block).
-    bf16=True runs the filterbank contraction in bfloat16 with f32
-    accumulation (the v5e MXU's native precision; channel outputs move
-    ~1e-2 relative — decision-safe for the demod, validated in
-    tools/bench_scale.py before it reports the bf16 number).
-
-    impl: "auto" routes the filterbank to the factorized FIR+IDFT Pallas
-    kernel (ops/pallas_channelize.filterbank_fir — channel-major output,
-    no corner-turn, ~15x fewer flops than the dense form) on TPU when its
-    geometry fits, else the dense block-Toeplitz kernel, else the XLA
-    matmul pipeline.  "fir" / "fir-interpret" force the factorized
-    kernel; "pallas" / "pallas-interpret" force the dense kernel;
-    "xla" forces the matmul pipeline.
+    `group` sets G, the outputs per matmul row (default: the largest of
+    8, 4, 2, 1 that divides T//K).
     """
     x = cplx.as_iq(x)
     T = x.shape[-1]
@@ -238,52 +220,17 @@ def channelize(
     new_state = xp[..., -hist:]
 
     M = T // K
-    if impl != "xla":
-        from . import pallas_channelize as pc
-
-        auto_kernel = (
-            impl == "auto" and group is None
-            and jax.default_backend() == "tpu"
-        )
-        # an explicit `group` is an XLA-path tuning knob (tune_kernels
-        # sweeps); honor it by keeping auto off the kernel routes
-        fir_fits = pc.fir_geometry(K, taps_per_phase)
-        if fir_fits and (impl in ("fir", "fir-interpret") or auto_kernel):
-            y = pc.filterbank_fir(
-                xp, K, taps_per_phase, M,
-                interpret=impl == "fir-interpret", bf16=bf16,
-            )
-            return y, new_state
-        if impl in ("fir", "fir-interpret"):
-            raise ValueError(
-                f"no FIR+IDFT geometry for K={K}, L={taps_per_phase}"
-            )
-        fits = pc.kernel_geometry(K, taps_per_phase) is not None
-        if fits and (impl in ("pallas", "pallas-interpret") or auto_kernel):
-            y = pc.filterbank(
-                xp, K, taps_per_phase, M,
-                interpret=impl == "pallas-interpret", bf16=bf16,
-            )
-            y = IQ(jnp.swapaxes(y.re, -1, -2), jnp.swapaxes(y.im, -1, -2))
-            return y, new_state
-        if impl in ("pallas", "pallas-interpret"):
-            raise ValueError(
-                f"no fused filterbank geometry for K={K}, L={taps_per_phase}"
-            )
     # flipped commutator: Xrev[r, p] = xp[rK + (K-1-p)] = x[rK - p - hist_adj]
     rows = M + L - 1
     Xc = xp[..., : rows * K].reshape(*x.shape[:-1], rows, K)
     Xrev = IQ(jnp.flip(Xc.re, axis=-1), jnp.flip(Xc.im, axis=-1))
 
-    # FIR + IDFT as ONE wide MXU contraction:
+    # FIR + IDFT as ONE wide contraction:
     #   y[m, k] = sum_{l,p} Xrev[m+(L-1)-l, p] * H[l, p] * W[p, k]
     # Group G consecutive outputs per row: ZB[q, (r, p)] = Xrev[Gq+r, p]
     # (r < L+G-1), times the block-Toeplitz WB of _fir_idft_matrix, gives
     # y[Gq+j, k] directly — one matmul with an (L+G-1)K contraction and a
     # G*K-wide result does the entire filterbank.
-    # G=8 measured best on v5e with the old strided-gather Z build; the
-    # contiguous-reshape build below may favor wider groups — `group`
-    # overrides for tuning sweeps (tools/tune_kernels.py)
     G = group or next(g for g in (8, 4, 2, 1) if M % g == 0)
     if M % G:
         raise ValueError(f"group={G} must divide M={M}")
@@ -292,7 +239,7 @@ def channelize(
         _grouped_rows(Xrev.im, K, L, G),
     )
     wbr, wbi = _fir_idft_matrix(K, taps_per_phase, G)
-    y = cplx.matmul(Z, IQ(jnp.asarray(wbr), jnp.asarray(wbi)), bf16=bf16)
+    y = cplx.matmul(Z, IQ(jnp.asarray(wbr), jnp.asarray(wbi)))
     y = y.reshape(*x.shape[:-1], M, K)
     # [..., M, K] -> [..., K, M]
     y = IQ(jnp.swapaxes(y.re, -1, -2), jnp.swapaxes(y.im, -1, -2))

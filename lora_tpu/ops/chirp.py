@@ -1,4 +1,4 @@
-"""Closed-form chirp synthesis (TPU-native reformulation).
+"""Closed-form chirp synthesis (batched reformulation).
 
 The reference integrates a sawtooth instantaneous frequency through a
 per-sample phase accumulator (/root/reference/ChirpGenerator.hpp:21-47):

@@ -1,4 +1,4 @@
-"""Vectorized bit-domain codecs (TPU-native formulation).
+"""Vectorized bit-domain codecs (batched formulation).
 
 Every codec of the reference's `LoRaCodes.hpp` is reformulated as an array
 operation over int32 tensors so that thousands of packets encode/decode as a

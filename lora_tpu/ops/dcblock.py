@@ -15,8 +15,8 @@ The classic block is the one-pole IIR
 A first-order linear recurrence is sequential on a CPU but *associative*
 in the pair representation m[n] = A*m[n-1] + B: two steps compose as
 (A2*A1, A2*B1 + B2).  `lax.associative_scan` therefore evaluates the
-whole recurrence in O(log T) depth with full VPU parallelism — the
-TPU-native form of the reference's per-sample loop.  The carried state
+whole recurrence in O(log T) depth with full data parallelism — the
+batched form of the reference's per-sample loop.  The carried state
 (the last DC estimate) makes chunked streaming seam-free; it is the
 moral twin of ops/resample.ResampleState.
 """

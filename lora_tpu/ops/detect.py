@@ -8,10 +8,9 @@ interpolation (LoRaDetector.hpp:29-64) — as one fused batched array op over
 folded into the dechirp multiply (a constant per-window phase does not
 affect |FFT|, so no cross-window rotator continuity is needed).
 
-All complex data is planar (ops/cplx.py) — the TPU runtime has no complex
-buffers.  The FFT runs through MXU matmuls (ops/fft.py) or, on TPU, the
-whole dechirp+FFT+argmax chain runs as one fused Pallas kernel
-(ops/pallas_detect.py) that keeps every intermediate in VMEM.
+All complex data is planar (ops/cplx.py); the transform is cuFFT through
+jnp.fft, with the dechirp multiply and the |X|^2 reductions fused around it
+by XLA.
 """
 
 from __future__ import annotations
@@ -24,7 +23,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from . import cplx
-from . import fft as fft_ops
 from .chirp import dechirp_table
 from .cplx import IQ
 
@@ -91,55 +89,26 @@ def _from_mag2(mag2: jax.Array, want_mag2: bool) -> DetectResult:
     )
 
 
-def detect(
-    dechirped,
-    want_mag2: bool = False,
-    fft_impl: str = "auto",
-) -> DetectResult:
+def fft(x: IQ) -> IQ:
+    """Batched complex FFT over the last axis (planar in, planar out)."""
+    spec = jnp.fft.fft(jax.lax.complex(x.re, x.im))
+    return IQ(jnp.real(spec), jnp.imag(spec))
+
+
+def detect(dechirped, want_mag2: bool = False) -> DetectResult:
     """argmax(|FFT|^2) detection over dechirped windows [..., N].
 
     Returns bin index, peak/noise powers in dB (normalized by 20*log10(N),
     LoRaDetector.hpp:18,50-54) and the 3-point fractional-bin interpolation
     (LoRaDetector.hpp:56-61).
     """
-    dechirped = cplx.as_iq(dechirped)
-    spectrum = fft_ops.fft(dechirped, impl=fft_impl)
+    spectrum = fft(cplx.as_iq(dechirped))
     return _from_mag2(cplx.mag2(spectrum), want_mag2)
 
 
 def dechirp_detect(
-    x,
-    down: bool = False,
-    ferr=None,
-    want_mag2: bool = False,
-    fft_impl: str = "auto",
-    want_f_index: bool = True,
-    bf16: bool = False,
+    x, down: bool = False, ferr=None, want_mag2: bool = False
 ) -> DetectResult:
-    """Fused dechirp + detect over sample windows [..., N].
-
-    On TPU, batched window stacks route to the fused Pallas kernel
-    (ops/pallas_detect.py, ~2x the XLA matmul path); single windows (the
-    demodulator's sequential sync scan) and debug taps stay on XLA.
-    bf16=True casts the Pallas kernel's DFT matmul operands to bfloat16
-    with f32 accumulation (ops/pallas_detect._mxu_dot); it only affects
-    the Pallas route — the XLA fallback stays f32.
-    """
-    x = cplx.as_iq(x)
-    if fft_impl in ("auto", "pallas") and not want_mag2:
-        from . import pallas_detect
-
-        # Batched window stacks only: single-window calls (the demodulator's
-        # sequential sync scan, vmapped over channels with a per-channel
-        # traced ferr) measured both slower and incorrectly batched through
-        # pallas_call's vmap rule — they stay on the XLA path.
-        use = fft_impl == "pallas" or (
-            jax.default_backend() == "tpu"
-            and x.ndim >= 2
-            and pallas_detect.supported(x.shape[-1])
-        )
-        if use:
-            return pallas_detect.dechirp_detect_pallas(
-                x, down, ferr, want_findex=want_f_index, bf16=bf16
-            )
-    return detect(dechirp(x, down, ferr), want_mag2=want_mag2, fft_impl=fft_impl)
+    """Dechirp + detect over sample windows [..., N], one XLA fusion
+    chain around the FFT."""
+    return detect(dechirp(x, down, ferr), want_mag2=want_mag2)

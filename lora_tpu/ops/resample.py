@@ -2,7 +2,7 @@
 
 The reference's capture harness resamples SDR captures to the LoRa
 bandwidth with scipy (RN2483Capture.py:80-84); real front-ends need
-non-integer ratios (e.g. 2.048 Msps -> 500 kHz = 4.096).  TPU-native
+non-integer ratios (e.g. 2.048 Msps -> 500 kHz = 4.096).  Batched
 formulation: a windowed-sinc interpolation filter bank of NPHASE
 fractional-delay subfilters (TAPS taps each, Kaiser design, built once on
 the host); each output sample gathers TAPS neighbouring inputs and dots

@@ -1,80 +1,24 @@
-"""Per-channel sub-window alignment shift (the fast payload gather path).
+"""Per-channel window alignment: row gather + sub-window shift.
 
-The demodulator needs each channel's mtu payload windows at a per-channel
-sample offset.  A sample-granular XLA gather materializes at ~28 GB/s on
-TPU; gathering whole N-sample rows on the aligned grid instead runs ~60x
-faster, leaving only the sub-N shift r = data_start mod N.  This module
-does that shift on-chip: window w = rows[w][r:] ++ rows[w+1][:r], computed
-per (channel, window-tile) grid cell as an in-VMEM concat + dynamic
-`pltpu.roll` (non-negative shifts only — negative dynamic shifts
-mis-lower; see the verify skill's Mosaic notes).
-
-CPU / non-TPU backends use an equivalent jnp formulation.
+The demodulator needs each channel's windows at a per-channel sample
+offset t0.  Instead of a sample-granular gather, whole N-sample rows are
+gathered on the aligned grid (gather_rows) and the remaining sub-N shift
+r = t0 mod N is applied to adjacent row pairs (shift_windows):
+window w = rows[w][r:] ++ rows[w+1][:r].  Together they equal slicing
+x[t0 : t0 + n*N].
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from . import cplx
 from .cplx import IQ
 
-_TWM = 24  # windows per tile (multiple of 8; +8 rows context per block)
 
-
-def _kernel(rs, a_ref, b_ref, o_ref):
-    """a_ref: rows w, b_ref: rows w+1 (both [TWM, N]); o_ref: [TWM, N]
-    shifted windows; rs: per-channel shift, scalar-prefetched.  BlockSpec
-    indices are block-granular, so the one-row offset comes from a second
-    pre-shifted input instead of overlapping blocks."""
-    b = pl.program_id(0)
-    N = o_ref.shape[-1]
-    r = rs[b]
-    wide = jnp.concatenate([a_ref[:, :], b_ref[:, :]], axis=1)  # [TWM, 2N]
-    rolled = pltpu.roll(wide, (2 * N - r) % (2 * N), 1)
-    o_ref[:, :] = rolled[:, :N]
-
-
-@functools.partial(jax.jit, static_argnames=("mtu", "interpret"))
-def _shift_tpu(g: jax.Array, r: jax.Array, mtu: int, interpret: bool):
-    """g: [B, R, N] rows (R >= mtu+1), r: int32 [B] -> [B, mtu, N]."""
-    B, R, N = g.shape
-    tiles = -(-mtu // _TWM)
-    rows_p = tiles * _TWM
-    ga = g[:, :rows_p] if R >= rows_p else jnp.pad(
-        g, ((0, 0), (0, rows_p - R), (0, 0))
-    )
-    gb = g[:, 1 : rows_p + 1]
-    if gb.shape[1] < rows_p:
-        gb = jnp.pad(gb, ((0, 0), (0, rows_p - gb.shape[1]), (0, 0)))
-    ga = ga.reshape(B * rows_p, N)
-    gb = gb.reshape(B * rows_p, N)
-    block = lambda: pl.BlockSpec(
-        (_TWM, N), lambda b, t, rs: (b * tiles + t, 0),
-        memory_space=pltpu.VMEM,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, tiles),
-        in_specs=[block(), block()],
-        out_specs=block(),
-    )
-    out = pl.pallas_call(
-        _kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B * rows_p, N), g.dtype),
-        interpret=interpret,
-    )(r.astype(jnp.int32), ga, gb)
-    return out.reshape(B, rows_p, N)[:, :mtu]
-
-
-def shift_windows(g: IQ, r: jax.Array, mtu: int, interpret: bool = False) -> IQ:
+def shift_windows(g: IQ, r: jax.Array, mtu: int) -> IQ:
     """g: IQ [B, *k, R, N] aligned rows (R >= mtu+1); r: int32 [B, *k] in
     [0, N); returns IQ [B, *k, mtu, N] with window
     w = g[..., w, r:] ++ g[..., w+1, :r]."""
@@ -83,13 +27,7 @@ def shift_windows(g: IQ, r: jax.Array, mtu: int, interpret: bool = False) -> IQ:
     BF = int(np.prod(lead)) if lead else 1
     gf = g.reshape(BF, R, N)
     rf = r.reshape(BF)
-    if interpret or jax.default_backend() == "tpu":
-        out = IQ(
-            _shift_tpu(gf.re, rf, mtu, interpret),
-            _shift_tpu(gf.im, rf, mtu, interpret),
-        )
-        return out.reshape(*lead, mtu, N)
-    # jnp fallback: concat adjacent rows, slice at r per channel
+    # concat adjacent rows, slice at r per channel
     wide_re = jnp.concatenate([gf.re[:, :-1], gf.re[:, 1:]], axis=-1)
     wide_im = jnp.concatenate([gf.im[:, :-1], gf.im[:, 1:]], axis=-1)
 

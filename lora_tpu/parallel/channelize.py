@@ -3,7 +3,8 @@
 A wideband capture arrives naturally sharded along *time* (each ingest host
 holds a contiguous slice).  Demodulation wants the *channel* axis parallel.
 This module runs the polyphase channelizer locally on every time shard —
-with the filter history pulled from the left neighbour over ICI (ppermute),
+with the filter history pulled from the left neighbour (ppermute, NCCL over
+NVLink between cards),
 exactly the streaming `state` of ops/channelizer.py — and then corner-turns
 the result with one `all_to_all` so each device ends up holding a channel
 group over the full capture (SURVEY.md §2.2 "distributed comm backend").
@@ -15,10 +16,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops import channelizer as chz
 from ..ops import cplx

@@ -19,8 +19,8 @@ import jax.numpy as jnp
 from ..config import LoRaConfig
 from ..models.demodulator import (
     DemodResult,
-    _payload_gather_rows,
     demodulate,
+    payload_rows,
     required_samples,
 )
 from ..models.decoder import decode
@@ -89,7 +89,7 @@ class ChannelDispatcher:
             # row-grid slack, so a frame ending at the stream's last sample
             # still passes demodulate's payload-fit check
             slack = (
-                _payload_gather_rows(cfg) - (cfg.mtu + 1) + 1
+                payload_rows(cfg.N, cfg.mtu) - (cfg.mtu + 1) + 1
             ) * cfg.N
             T = max(need, slack + max(
                 np.shape(streams[ch])[-1] if not isinstance(streams[ch], IQ)

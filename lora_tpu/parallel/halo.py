@@ -4,8 +4,8 @@ The reference consumes its sample stream strictly sequentially with
 data-dependent strides (LoRaDemod.cpp:320) — sequence parallelism does not
 exist there (SURVEY.md §2.2/§5).  Here a long capture is split into fixed
 blocks across the mesh's `time` axis; each shard pulls a *left margin* from
-its left neighbour and a *right halo* from its right neighbour over ICI via
-`jax.lax.ppermute` (the SDR analogue of ring attention's neighbour
+its left neighbour and a *right halo* from its right neighbour via
+`jax.lax.ppermute` (NCCL over NVLink between cards) (the SDR analogue of ring attention's neighbour
 exchange) and runs the block-parallel frame search locally.
 
 Ownership rule: a frame belongs to the shard whose main region contains its
@@ -26,10 +26,7 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..config import LoRaConfig
 from ..models.demodulator import demodulate, required_samples, DemodResult

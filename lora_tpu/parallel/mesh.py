@@ -3,7 +3,7 @@
 The reference is a single-process, single-stream pipeline; its only
 parallelism is the external Pothos thread-per-block scheduler
 (/root/reference/examples/lora_simulation.pth topologies; SURVEY.md §2.2).
-The TPU build's primary scaling axis is instead *data parallelism over
+This framework's primary scaling axis is instead *data parallelism over
 channels*: thousands of independent LoRa channels demodulated as one
 sharded array program over a `jax.sharding.Mesh`.
 
@@ -13,8 +13,9 @@ Two mesh axes are used framework-wide:
   time     overlap-save time-sharding of one wideband stream (SP analogue,
            see halo.py)
 
-Collectives ride ICI inside a slice; metric reductions (`aggregate_metrics`)
-use `psum`/mean over both axes and are the TPU equivalent of the reference's
+Collectives ride NCCL over NVLink between the cards of a host; metric
+reductions (`aggregate_metrics`) use `psum`/mean over both axes and are the
+batched equivalent of the reference's
 async `error`/`power`/`snr`/`dropped` signals (LoRaDemod.cpp:85-87,267-269;
 LoRaDecoder.cpp:123,401-405).
 """

@@ -2,12 +2,13 @@
 
 Single-controller JAX: every host runs the same program; jax.distributed
 wires the hosts into one global device set, the ('time','channel') mesh
-spans all slices, and the halo/corner-turn collectives ride ICI within a
-slice and DCN across slices with no code changes in the compute path
+spans all hosts, and the halo/corner-turn collectives ride NCCL over
+NVLink within a host and the network across hosts with no code changes
+in the compute path
 (SURVEY.md §2.2 "distributed comm backend").
 
 Each ingest host feeds the time shards backed by its local devices
-(`local_time_range`), so capture data never crosses DCN in raw form — only
+(`local_time_range`), so capture data never crosses hosts in raw form — only
 the (small) halo edges and reduced metrics do.
 
 This module cannot be exercised on the single-chip CI; it is the
@@ -28,8 +29,9 @@ def initialize(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """jax.distributed.initialize with env-based autodetection by default
-    (GKE/TPU-VM set the env; explicit args for bare-metal clusters).
+    """jax.distributed.initialize.  Pass coordinator ("host:port"),
+    num_processes and process_id explicitly where no cluster environment
+    (e.g. SLURM) describes the job.
 
     Must run before anything touches the XLA backend — including
     jax.process_count()/jax.devices(); this wrapper therefore probes the

@@ -1,41 +1,76 @@
 """ctypes bindings for the native IQ ingest library (runtime/native/iqio.cpp).
 
-Compiled on first use with g++ -O3 into the package directory; every entry
-point has a numpy fallback so the framework functions without a toolchain
-(the native path exists for Msps-rate capture ingest, the role the
-reference delegates to Pothos buffer managers and SoapySDR,
+Compiled with g++ -O3 -march=native into the package directory on first
+use, and rebuilt whenever the source is newer than the library or the
+library was built for another CPU (a stamp file records the host); every
+entry point has a numpy fallback so the framework functions without a
+toolchain (the native path exists for Msps-rate capture ingest, the role
+the reference delegates to Pothos buffer managers and SoapySDR,
 LoRaDemod.cpp:330-358, RN2483Capture.py:45-53).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import pathlib
+import platform
 import subprocess
 import threading
 
 import numpy as np
 
 _DIR = pathlib.Path(__file__).parent / "native"
+_SRC = _DIR / "iqio.cpp"
 _SO = _DIR / "libiqio.so"
+_STAMP = _DIR / "libiqio.host"
 _lock = threading.Lock()
 _lib = None
 _lib_tried = False
 
 
+def host_key() -> str:
+    """Identity of the CPU a -march=native build is valid for."""
+    try:
+        info = pathlib.Path("/proc/cpuinfo").read_text()
+    except OSError:
+        info = ""
+    keep = [ln for ln in info.splitlines()
+            if ln.startswith(("model name", "flags"))][:2]
+    ident = "\n".join([platform.machine(), *keep])
+    return hashlib.sha1(ident.encode()).hexdigest()[:16]
+
+
+def is_stale(so=_SO, stamp=_STAMP, src=_SRC) -> bool:
+    """True when the library must be (re)built: missing, older than its
+    source, or stamped with another host."""
+    if not (so.exists() and stamp.exists()):
+        return True
+    if src.stat().st_mtime > so.stat().st_mtime:
+        return True
+    return stamp.read_text().strip() != host_key()
+
+
 def _build() -> bool:
-    src = _DIR / "iqio.cpp"
+    # build under a private name, then rename: concurrent processes
+    # (test workers) never load a half-written library
+    tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}")
     try:
         subprocess.run(
             ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             str(src), "-o", str(_SO)],
+             str(_SRC), "-o", str(tmp)],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, _SO)
+        tmp_stamp = _STAMP.with_name(f"{_STAMP.name}.{os.getpid()}")
+        tmp_stamp.write_text(host_key())
+        os.replace(tmp_stamp, _STAMP)
         return True
     except Exception:
+        tmp.unlink(missing_ok=True)
         return False
 
 
@@ -46,7 +81,7 @@ def get_lib():
         if _lib is not None or _lib_tried:
             return _lib
         _lib_tried = True
-        if not _SO.exists() and not _build():
+        if is_stale() and not _build():
             return None
         try:
             lib = ctypes.CDLL(str(_SO))

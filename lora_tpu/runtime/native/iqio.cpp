@@ -4,7 +4,7 @@
 // Pothos zero-copy BufferChunks with custom buffer managers sized to the
 // blocks' needs (/root/reference/LoRaMod.cpp:241-251,
 // LoRaDemod.cpp:330-358) and SDR capture ingest at Msps rates
-// (RN2483Capture.py:45-53 via SoapySDR).  The TPU build's equivalent hot
+// (RN2483Capture.py:45-53 via SoapySDR).  This framework's equivalent hot
 // host path is (a) converting SDR wire formats (interleaved cs8/cs16/cf32)
 // into the planar float32 IQ layout the device wants, and (b) buffering a
 // capture stream between the ingest thread and the dispatch thread.  Both

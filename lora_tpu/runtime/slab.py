@@ -1,8 +1,7 @@
 """Slab execution: demodulate channel banks larger than one dispatch.
 
-Round 1 hit the single-dispatch memory ceiling at B=6144 SF10 channels
-(docs/SCALING.md): the demod step's working set (input bank + payload row
-gather + scan blocks) must fit HBM at once.  This runner processes an
+The demod step's working set (input bank + payload row gather + scan
+blocks) must fit device memory at once.  This runner processes an
 arbitrarily large host-resident bank in fixed-size slabs through ONE
 compiled program, software-pipelined so slab k+1's host->device transfer
 and dispatch overlap slab k's readback — the device never idles between

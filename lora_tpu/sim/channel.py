@@ -5,7 +5,7 @@ Replaces the reference's Pothos comms blocks used as the loopback channel:
 97-99) and /comms/rotate (lora_simulation.pth, phase pi/1.2345), plus CFO
 and integer sample timing offset injection for receiver-recovery tests.
 All functions are pure, batched, jit-friendly, and operate on planar IQ
-(ops/cplx.py — the TPU runtime has no complex buffers).
+(ops/cplx.py).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Opt-in numeric sanitizer for the demod path (SURVEY.md §5 "race
-detection / sanitizers" TPU-equivalent).
+detection / sanitizers" equivalent).
 
 The framework is pure by construction (no shared mutable state to race
 on), so the remaining class of silent corruption is NUMERIC: a NaN/Inf
@@ -35,7 +35,7 @@ import numpy as np
 
 # ContextVar, not a module global: arming is scoped to the arming
 # thread/context, so a concurrent ingest/device pipeline thread (e.g.
-# tools/bench_e2e.py) keeps its unsynchronized fast path, and nested
+# StreamDemodulator.pump's) keeps its unsynchronized fast path, and nested
 # contexts cannot race across threads.
 _ARMED: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "lora_debug_checks", default=False

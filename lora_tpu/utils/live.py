@@ -3,7 +3,7 @@
 The reference wires the demodulator's debug taps and stream labels into
 interactive GUI plotters — spectral waterfalls plus a logic-analyzer lane
 of state labels (`LoRaDemod.cpp:81-83,314-324`, `examples/rx_RN2483.pth`).
-This module is the TPU build's equivalent for watching a live
+This module is this framework's equivalent for watching a live
 `runtime.StreamDemodulator` run without a GUI: an ANSI terminal dashboard
 updated after every device step, showing per-channel SNR sparklines, sync
 activity, frame events with payload status, and stream progress.

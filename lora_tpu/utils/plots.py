@@ -2,7 +2,7 @@
 
 The reference wires its demod debug ports into live plotters — `raw` and
 `dec` into spectral/waterfall views and `fft` into a logic-analyzer lane
-(LoRaDemod.cpp:81-83, examples/rx_RN2483.pth).  The TPU build computes the
+(LoRaDemod.cpp:81-83, examples/rx_RN2483.pth).  This framework computes the
 same taps in one batched pass (`demodulate(..., debug=True)`); this module
 is the headless renderer: a committed artifact instead of a GUI.
 

@@ -4,7 +4,7 @@ The reference's observability is GUI plotters on demod debug taps plus
 stream labels (LoRaDemod.cpp:81-83,314-324).  Here:
 
   - `profile(dir)` wraps a region in a jax.profiler trace (view with
-    TensorBoard / xprof); no-ops gracefully where the backend can't trace.
+    TensorBoard / xprof, or reduce with tools/trace_stages.py).
   - `frame_events(dem, cfg)` turns a DemodResult bank into the structured
     per-frame records the reference emitted as labels/signals.
 """
@@ -20,19 +20,17 @@ import jax
 
 @contextlib.contextmanager
 def profile(trace_dir: str | None) -> Iterator[None]:
-    """jax.profiler trace around a region; None disables."""
+    """jax.profiler trace around a region; None disables.  Errors, the
+    region's or the profiler's, propagate."""
     if not trace_dir:
         yield
         return
-    try:
-        with jax.profiler.trace(trace_dir):
-            yield
-    except Exception:  # tracing unsupported on this runtime: still run
+    with jax.profiler.trace(trace_dir):
         yield
 
 
 def frame_events(dem, cfg) -> list[dict]:
-    """Per-frame event records from a (batched) DemodResult — the TPU-side
+    """Per-frame event records from a (batched) DemodResult — the
     equivalent of the reference's stream labels + error/power/snr signals."""
     found = np.atleast_1d(np.asarray(dem.found))
     out = []

@@ -60,8 +60,8 @@ def test_streaming_state_continuity():
 
 def test_group_width_invariance():
     # the output-group width G is a pure performance knob of the
-    # block-Toeplitz contraction (tools/tune_kernels.py sweeps it on
-    # hardware): every legal G must produce the same channels
+    # block-Toeplitz contraction: every legal G must produce the same
+    # channels
     K, M = 16, 64
     rng = np.random.default_rng(5)
     x = cplx.IQ(

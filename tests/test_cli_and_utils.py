@@ -35,7 +35,8 @@ def test_blockgen_word_sizes():
 def _run_cli(*args):
     import os
 
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH="/root/repo")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=root)
     return subprocess.run(
         [sys.executable, "-m", "lora_tpu.cli", *args],
         capture_output=True,

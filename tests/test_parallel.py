@@ -105,9 +105,11 @@ def test_time_sharded_stream_boundary_frames(time_ax, rng):
 
 
 def test_graft_entry_and_dryrun():
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
     try:
         import __graft_entry__ as ge
 
@@ -117,7 +119,7 @@ def test_graft_entry_and_dryrun():
         assert bool(np.all(np.asarray(out[2])))  # all found
         ge.dryrun_multichip(8)
     finally:
-        sys.path.remove("/root/repo")
+        sys.path.remove(root)
 
 
 def test_time_sharded_stream_multi_frame(rng):

@@ -2,7 +2,7 @@
 // framework).  Times the *reference* LoRaMod block's 9-state FSM
 // (/root/reference/LoRaMod.cpp) producing chirp samples for a queue of
 // symbol packets, single-threaded, built -O3.  Companion to
-// bench_reference.cpp (RX side); see docs/SCALING.md baseline rows.
+// bench_reference.cpp (RX side); see BASELINE.md.
 //
 // Prints one JSON line: {"samples", "seconds", "msps", "packets"}.
 //
